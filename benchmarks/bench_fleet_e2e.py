@@ -13,8 +13,9 @@ forward model per target: the per-step COST is identical to a real fit and
 that is what the benchmark measures; posterior values are not the point
 here (see tests/test_koi2298.py and the parity suites for correctness).
 
-Run on TPU:
-    nohup python benchmarks/bench_fleet_e2e.py > /tmp/fleet_e2e.log 2>&1 &
+Needs the reference's ``Data/`` directory (``REF`` below; it is not in
+this repository).  Run on a GPU:
+    python benchmarks/bench_fleet_e2e.py
 """
 from __future__ import annotations
 

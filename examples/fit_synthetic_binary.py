@@ -25,7 +25,8 @@ from mcmc_spec_tpu.report.corner_plot import corner_plot
 
 def main(outdir="example_out"):
     os.makedirs(outdir, exist_ok=True)
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    # f32 on an accelerator; f64 where the CPU runs it
+    dtype = jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
     print(f"building synthetic target (backend={jax.default_backend()})...")
     tgt, truth = build_bench_target(dtype, grid_step=4.0)
 

@@ -1,36 +1,33 @@
 #!/usr/bin/env python
-"""Spectral-axis model parallelism: fit a target whose grid shards over chips.
+"""Spectral-axis model parallelism: fit a target whose grid shards over devices.
 
 Demonstrates ``mcmc_spec_tpu.parallel.spec_shard`` — the scaling axis for
-model grids larger than one chip's HBM.  The packed target's wavelength
+model grids larger than one device's memory.  The packed target's wavelength
 axis shards over the ``spec`` mesh axis (the grid projection
 ``D [nT, nG, nd]`` dominates device memory), walkers data-parallelize over
 the ``walkers`` axis, and the log-posterior stays exact: column-parallel
 model matmul, psum'd renorm/chi^2 reductions, and a distributed radix-select
-median that is bit-identical to the single-chip rank median.
+median that is bit-identical to the single-device rank median.
 
-Runs anywhere: on a real multi-chip slice the mesh maps to devices over
-ICI; here it falls back to a virtual CPU mesh so the example is
-self-contained (same recipe the test suite uses).
+    python examples/spec_sharded_fit.py [walkers_axis] [spec_axis] [--cpu]
 
-    python examples/spec_sharded_fit.py [walkers_axis] [spec_axis] [--real]
-
-By default the example builds a virtual CPU mesh so it runs self-contained
-on any machine; pass ``--real`` on an actual multi-chip slice to map the
-mesh onto the hardware devices.
+The mesh maps onto the default backend's devices (for example the GPUs of
+one host), which must number at least ``walkers_axis * spec_axis``.
+``--cpu`` builds a virtual CPU mesh of that size instead, so the example
+runs on any machine (the recipe the test suite uses).
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-args = [a for a in sys.argv[1:] if a != "--real"]
+args = [a for a in sys.argv[1:] if a != "--cpu"]
 W = int(args[0]) if len(args) > 0 else 2
 S = int(args[1]) if len(args) > 1 else 4
+CPU = "--cpu" in sys.argv
 
-if "--real" not in sys.argv:
-    # virtual CPU mesh: must be configured before the backend initializes,
-    # and jax.config must be updated too (site configs may force a platform)
+if CPU:
+    # virtual CPU mesh: must be configured before the backend initializes
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") +
@@ -39,7 +36,7 @@ if "--real" not in sys.argv:
 
 import jax
 
-if "--real" not in sys.argv:
+if CPU:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
@@ -59,6 +56,9 @@ from mcmc_spec_tpu.parallel.spec_shard import (
 
 def main():
     dtype = jnp.float32
+    if len(jax.devices()) < W * S:
+        raise SystemExit(f"a {W}x{S} mesh needs {W * S} devices, have "
+                         f"{len(jax.devices())}; pass --cpu for a virtual CPU mesh")
     mesh = Mesh(np.array(jax.devices()[: W * S]).reshape(W, S), ("walkers", "spec"))
     print(f"mesh: {dict(zip(mesh.axis_names, mesh.devices.shape))} "
           f"on {jax.devices()[0].platform}")

@@ -1,4 +1,4 @@
-"""mcmc_spec_tpu: a TPU-native framework for composite-spectrum MCMC fitting.
+"""mcmc_spec_tpu: a JAX framework for composite-spectrum MCMC fitting on GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``kendallsullivan/mcmc_spec`` (reference: ``mft6.py``): inference of unresolved
@@ -6,7 +6,7 @@ binary/triple star parameters (component Teffs, extinction Av, radii, parallax)
 by jointly fitting an observed spectrum, resolved contrast magnitudes, and
 unresolved photometry against interpolated model-spectrum grids.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
 
 * The model grid is packed into a device-resident ``f32[nT, nG, nwl]`` tensor
   (reference keeps a python dict of numpy arrays, ``mft6.py:255-385``).
@@ -16,8 +16,8 @@ Design (TPU-first, not a port):
   log-posterior evaluation is then a couple of bilinear gathers plus fused
   vector math over ~2k points  (reference re-globs the model directory and
   re-runs interp1d/trapz per evaluation, ``mft6.py:387-563,651-831``).
-* Walkers are ``vmap``-ed within a chip and ``shard_map``-ed over a
-  ``jax.sharding.Mesh`` across chips; whole chains run inside ``lax.scan``
+* Walkers are ``vmap``-ed within a device and ``shard_map``-ed over a
+  ``jax.sharding.Mesh`` across devices; whole chains run inside ``lax.scan``
   (reference forks one OS process per walker, ``mft6.py:1744-1753``).
 * Host dependencies in the hot loop (Bayestar dust-map query per step,
   ``mft6.py:1233-1239``) become precomputed device tensors.

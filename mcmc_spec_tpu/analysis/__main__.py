@@ -49,6 +49,11 @@ def main(argv=None):
     ap.add_argument("--no-plots", action="store_true")
     args = ap.parse_args(argv)
 
+    from mcmc_spec_tpu.utils.extras import require
+
+    require("pandas", "analysis")
+    if not args.no_plots:
+        require("matplotlib", "analysis", hint="or pass --no-plots")
     import pandas as pd
 
     from mcmc_spec_tpu.analysis.planets import (

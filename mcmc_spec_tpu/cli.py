@@ -79,9 +79,14 @@ def main(argv=None):
             "[-e True|False] [--nospec] [--mesh auto|off|WxS]"
         )
 
-    # before the first dispatch: repeat runs of the same config skip the
-    # 30-60 s/program remote compiles entirely (MCMC_SPEC_COMPILE_CACHE=0
-    # opts out)
+    if not noplots:
+        # fail before any compute, not after the fit, when plots can't render
+        from mcmc_spec_tpu.utils.extras import require
+
+        require("matplotlib", "plots", hint="or pass --noplots")
+
+    # before the first dispatch: repeat runs of the same config skip
+    # compilation entirely
     from mcmc_spec_tpu.utils.flags import enable_persistent_compile_cache
 
     enable_persistent_compile_cache()

@@ -1,21 +1,19 @@
-"""Explicitly-batched posterior: the production hot path on TPU.
+"""Explicitly-batched posterior: the production hot path.
 
 Semantics are identical to :mod:`mcmc_spec_tpu.inference.posterior` (the
 per-walker reference implementation, golden-tested against the reference
 emulator); this module re-expresses the computation for a whole walker batch
-``[nw, ndim]`` at once in a TPU-native form:
+``[nw, ndim]`` at once:
 
-* **No gathers, no searchsorted.**  A per-query scalar gather from even a
-  small table costs ~1 ms per 8k queries on TPU v5e; all interpolations here
-  are branchless tent-basis weightings (:func:`tent_weights`).
-* **Bilinear grid blending as an MXU matmul.**  The (Teff, logg) bilinear
+* **No gathers, no searchsorted.**  All interpolations are branchless
+  tent-basis weightings (:func:`tent_weights`), which vectorize over the
+  walker batch.
+* **Bilinear grid blending as a matmul.**  The (Teff, logg) bilinear
   weights are the outer product of two tent bases, giving a per-walker weight
   row over the ``nT*nG`` grid points; the batch's model spectra are then one
   ``[nw, nT*nG] @ [nT*nG, nd]`` matmul (and the filter fluxes tiny ones).
 * Everything else (extinction, median match, continuum renorm, chi^2) is
   fused elementwise/reduction work on ``[nw, nd]``.
-
-Measured effect: ~6.4 ms -> <1 ms per 4096-walker evaluation batch.
 
 One intentional edge difference from the scalar path: tent weights clamp at
 the grid edges instead of linearly extrapolating beyond them.  Inside the
@@ -31,9 +29,9 @@ from mcmc_spec_tpu.inference.target import PC_CM, RSUN_CM, PackedTarget
 from mcmc_spec_tpu.models.mist import LSUN, RSUN, SIGMA_SB
 from mcmc_spec_tpu.ops.interp import tent_weights
 
-# TPU MXU matmuls default to single-pass bf16 (~2.5e-3 relative error), which
-# is far too coarse for chi^2 against ~1%-error data; force full f32 passes on
-# every contraction in the hot path.  (CPU ignores the hint.)
+# A GPU may run an f32 matmul in TF32 (~1e-3 relative error), far too coarse
+# for chi^2 against ~1%-error data: every contraction in the hot path asks
+# for full f32.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -114,7 +112,7 @@ def forward_batch(p, tgt: PackedTarget):
 
 
 def _spec_chi2_xla(Wcomb, av, tgt: PackedTarget):
-    """Fallback spectrum chi^2 (mean over data points) in pure XLA."""
+    """Sort-lane spectrum chi^2 (mean over data points): rank median by a row sort."""
     nT, nG, nd = tgt.D.shape
     model_raw = jnp.matmul(Wcomb, tgt.D.reshape(nT * nG, nd), precision=_HI)
     apply_ext = (av > 0)[:, None]
@@ -165,50 +163,39 @@ def _spec_chi2_xla_median_only(Wcomb, av, tgt: PackedTarget):
     return jnp.sum(resid2, axis=1) / tgt.n_data_true.astype(model.dtype)
 
 
+def _spec_chi2(Wcomb, av, tgt: PackedTarget, renorm: bool):
+    """Mean spectrum chi^2 through the lane ``flags.spectrum_lane`` picks.
+
+    Both lanes carry both scoring conventions: ``renorm=True`` is the
+    emcee-stage likelihood, ``renorm=False`` the annealer's median-only chi^2.
+    """
+    from mcmc_spec_tpu.utils.flags import spectrum_lane
+
+    nT, nG, nd = tgt.D.shape
+    if spectrum_lane(nd) == "xla":
+        return (_spec_chi2_xla if renorm else _spec_chi2_xla_median_only)(Wcomb, av, tgt)
+    from mcmc_spec_tpu.ops.spec_segmented import spectrum_chi2_segmented
+
+    return spectrum_chi2_segmented(
+        Wcomb, av, tgt.D.reshape(nT * nG, nd), tgt.ext_k_data, tgt.data_flux,
+        tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data, tgt.n_data_true,
+        iters=tgt.median_iters, renorm=renorm)
+
+
 def _chi2_terms_batch(p, tgt: PackedTarget, spec_mult, chi_spec=None,
                       renorm=True):
     n = tgt.nspec
     av = p[:, n]
     contrasts, phot_raw, _, _, Wcomb = _forward_small(p, tgt)
 
-    from mcmc_spec_tpu.utils.flags import use_pallas_spectrum
-
     if chi_spec is not None:
-        pass  # precomputed (fleet kernel path)
+        pass  # precomputed (the spectral-sharded path)
     elif tgt.spectrum_weight == 0.0:
         # nospec mode: the spectrum term is dropped entirely (mft6_nospec.py)
         chi_spec = jnp.zeros(p.shape[0], dtype=p.dtype)
-    elif tgt.spectrum_backend != "xla" and use_pallas_spectrum(p.dtype):
-        # the kernel carries both scoring conventions: renorm=True is the
-        # emcee-stage likelihood, renorm=False the annealer's median-only
-        # chi^2 (the round-3 XLA-only annealer fallback measured 3.6 s vs
-        # ~1 s for the same schedule through the kernel)
-        from mcmc_spec_tpu.ops.pallas_kernels import resolve_dials, spectrum_chi2
-
-        it, mm, rn = resolve_dials(tgt)  # pack-time statics (no env reads)
-        nT, nG, nd = tgt.D.shape
-        if nd > 4096:
-            # native-resolution regime: the VMEM-resident kernel can't hold
-            # a [*, nd] row; the segmented lane streams D through (walker,
-            # nd) tiles with an exact count-based median (round 5)
-            from mcmc_spec_tpu.ops.spec_segmented import spectrum_chi2_segmented
-
-            chi_spec = spectrum_chi2_segmented(
-                Wcomb, av, tgt.D.reshape(nT * nG, nd), tgt.ext_k_data,
-                tgt.data_flux, tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data,
-                tgt.n_data_true, iters=it, mm_passes=mm, recip=rn,
-                renorm=renorm,
-            )
-        else:
-            chi_spec = spectrum_chi2(
-                Wcomb, av, tgt.D.reshape(nT * nG, nd), tgt.ext_k_data,
-                tgt.data_flux, tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data,
-                iters=it, mm_passes=mm, recip=rn, renorm=renorm,
-            )
-    elif renorm:
-        chi_spec = _spec_chi2_xla(Wcomb, av, tgt)
     else:
-        chi_spec = _spec_chi2_xla_median_only(Wcomb, av, tgt)
+        with jax.named_scope("spectrum_chi2"):
+            chi_spec = _spec_chi2(Wcomb, av, tgt, renorm).astype(p.dtype)
 
     apply_ext = (av > 0)[:, None]
     phot = jnp.where(apply_ext, phot_raw + av[:, None] * tgt.ext_k_cwl[None, :], phot_raw)
@@ -289,46 +276,11 @@ def log_prior_batch(p, tgt: PackedTarget):
     return jnp.where(ok, lp, -jnp.inf)
 
 
-def _fusable(tgt: PackedTarget) -> bool:
-    """Eligible for the one-kernel-per-eval fused path: single-target
-    (unpadded — fleet padding needs per-row median ranks) with non-empty
-    contrast and photometry blocks (zero-width refs don't lower), and a
-    data axis short enough that the whole [*, nd] row block fits the
-    ~16 MB scoped VMEM (beyond that the composition dispatches the
-    segmented lane, ``ops.spec_segmented``)."""
-    return (
-        tgt.spectrum_backend != "xla"
-        and tgt.n_contrast > 0
-        and tgt.n_phot > 0
-        and tgt.D.shape[2] <= 4096
-    )
-
-
 def log_posterior_batch(p, tgt: PackedTarget, chi_spec=None):
     """Batched ``logposterior``: the sampler hot path.
 
-    ``chi_spec``: optionally precomputed mean spectrum chi^2 (fleet kernel).
-
-    On TPU/f32 single-target evals the whole computation (forward model,
-    spectrum statistics, priors, bounds) runs as ONE Pallas kernel
-    (``ops.pallas_kernels.log_posterior_fused``) — a device trace showed the
-    split XLA composition leaving ~17% of sampler step time in small fusions
-    around the spectrum kernel.  Semantics are identical to the composition
-    below (tests/test_pallas_kernel.py).
+    ``chi_spec``: optionally precomputed mean spectrum chi^2.
     """
-    if chi_spec is None and _fusable(tgt):
-        from mcmc_spec_tpu.utils.flags import use_fused_eval
-
-        if use_fused_eval(p.dtype):
-            from mcmc_spec_tpu.ops.pallas_kernels import log_posterior_fused
-
-            # off-TPU (MCMC_SPEC_FUSED_EVAL=1 on CPU) runs the same kernel
-            # through the Pallas interpreter, so tests can drive the whole
-            # pipeline down the fused path
-            return log_posterior_fused(
-                p, tgt, interpret=jax.default_backend() != "tpu"
-            )
-
     lp = log_prior_batch(p, tgt)
     ll = log_likelihood_batch(p, tgt, chi_spec=chi_spec)
     return jnp.where(jnp.isfinite(lp), lp + ll, -jnp.inf)
@@ -352,8 +304,8 @@ def optimizer_chi2_batch(p, tgt: PackedTarget, rad_sigma=None, chi_spec=None):
     # scripts/median_tempering_bound_cpu.py) — so stage 1 always scores
     # with the EXACT median regardless of the production dial; only the
     # emcee-stage (renorm) path, where the tempering bound applies, keeps
-    # it.  Static meta swap: no runtime cost beyond the per-pass kernel
-    # work in a stage that is ~1 s total.
+    # it.  Static meta swap: no runtime cost beyond the extra count rounds
+    # of the count-median lane in a stage that is ~1 s total.
     if chi_spec is None and tgt.median_iters not in (0, 31):
         import dataclasses
 

@@ -30,61 +30,17 @@ def stack_targets(targets: Sequence[PackedTarget]) -> PackedTarget:
     """Stack identically-shaped PackedTargets on a new leading axis.
 
     All targets must share meta config and array shapes (pack with matching
-    ``pad_nd``/``pad_nc`` and the same grid/MIST shapes).  Targets padded to
-    common shapes force the XLA spectrum backend.
+    ``pad_nd``/``pad_nc`` and the same grid/MIST shapes).
     """
-    import dataclasses
-
     t0 = targets[0]
     for t in targets[1:]:
         assert t.nspec == t0.nspec and t.fit_plx == t0.fit_plx, "mixed fleet configs"
         assert t.dist_fit == t0.dist_fit and t.rad_prior == t0.rad_prior
-    # the fleet path always uses the XLA spectrum backend (rank-based medians
-    # over padded rows need per-target ranks, which the Pallas kernel fixes
-    # statically); normalising the meta also makes the pytree structures match
-    targets = [dataclasses.replace(t, spectrum_backend="xla") for t in targets]
     return jax.tree.map(lambda *xs: jnp.stack(xs), *targets)
 
 
 def log_posterior_fleet(params, fleet: PackedTarget):
-    """[ntgt, nw, ndim] -> [ntgt, nw] log posteriors.
-
-    Default TPU/f32 path: fleet spectrum Pallas kernel + vmapped batched
-    composition for the rest.  A fully-fused per-eval kernel
-    (``log_posterior_fleet_fused``) exists and is parity-tested, but measured
-    ~8% SLOWER than the composition at fleet scale (benchmarks/RESULTS.md —
-    XLA's big [ntgt*nw, .] batched matmuls beat in-kernel serialization of
-    the small ops), so it is opt-in via ``MCMC_SPEC_FUSED_EVAL=1``.
-    """
-    from mcmc_spec_tpu.inference import batched
-    from mcmc_spec_tpu.utils.flags import fused_eval_forced, use_pallas_spectrum
-
-    if fused_eval_forced() and fleet.n_contrast > 0 and fleet.n_phot > 0:
-        from mcmc_spec_tpu.ops.pallas_kernels import log_posterior_fleet_fused
-
-        return log_posterior_fleet_fused(
-            params, fleet, interpret=jax.default_backend() != "tpu"
-        )
-
-    if fleet.spectrum_weight != 0.0 and use_pallas_spectrum(params.dtype):
-        from mcmc_spec_tpu.ops.pallas_kernels import (
-            resolve_dials,
-            spectrum_chi2_fleet,
-        )
-
-        _, _, _, _, Wcomb = jax.vmap(batched._forward_small)(params, fleet)
-        av = params[..., fleet.nspec]
-        it, mm, rn = resolve_dials(fleet)  # pack-time statics (no env reads)
-        ntgt, nT, nG, nd = fleet.D.shape
-        chi_spec = spectrum_chi2_fleet(
-            Wcomb, av, fleet.D.reshape(ntgt, nT * nG, nd), fleet.ext_k_data,
-            fleet.data_flux, fleet.data_err, fleet.V, fleet.Vpinv,
-            fleet.med_data, fleet.n_data_true,
-            iters=it, mm_passes=mm, recip=rn,
-        )
-        return jax.vmap(
-            lambda p, t, cs: log_posterior_batch(p, t, chi_spec=cs)
-        )(params, fleet, chi_spec)
+    """[ntgt, nw, ndim] -> [ntgt, nw] log posteriors."""
     return jax.vmap(log_posterior_batch)(params, fleet)
 
 

@@ -28,12 +28,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from mcmc_spec_tpu.inference.target import PC_CM, RSUN_CM, PackedTarget
 from mcmc_spec_tpu.models.mist import LSUN, RSUN, SIGMA_SB
 from mcmc_spec_tpu.ops.continuum import continuum_renorm
 from mcmc_spec_tpu.ops.interp import bilinear_bracket, bilinear_gather_blend, pwl_interp, tent_weights
+
+# full-f32 contractions on a GPU, which may otherwise run them in TF32
+_HI = jax.lax.Precision.HIGHEST
 
 
 def mist_logg(tgt: PackedTarget, teff):
@@ -52,7 +56,8 @@ def av_prior_mu_sig(tgt: PackedTarget, dist_pc):
     """Precomputed Bayestar LOS prior at a distance (replaces mft6.py:1233-1239)."""
     logd = jnp.log(jnp.maximum(dist_pc, 1e-3))
     w = tent_weights(tgt.av_logd_nodes, logd)
-    return w @ tgt.av_mu_nodes, w @ tgt.av_sig_nodes
+    return (jnp.matmul(w, tgt.av_mu_nodes, precision=_HI),
+            jnp.matmul(w, tgt.av_sig_nodes, precision=_HI))
 
 
 class ForwardOut(NamedTuple):
@@ -115,7 +120,7 @@ def forward(p, tgt: PackedTarget) -> ForwardOut:
     fcs = jnp.stack(fcs)  # [nspec, nc]
     fps = jnp.stack(fps)  # [nspec, npf]
 
-    model_data = jnp.einsum("k,kd->d", scales, ds)
+    model_data = jnp.einsum("k,kd->d", scales, ds, precision=_HI)
 
     # contrast magnitudes (mft6.py:713-749): mag_k = -2.5 log10(flux_k);
     # binary: c = mag_2 - mag_1; triple: first half vs comp 2, rest vs comp 3.
@@ -134,7 +139,7 @@ def forward(p, tgt: PackedTarget) -> ForwardOut:
 
     # unresolved photometry (mft6.py:771-783): composite flux through each
     # photon-weighted filter over its zero flux.
-    pflux = jnp.einsum("k,kf->f", scales, fps)
+    pflux = jnp.einsum("k,kf->f", scales, fps, precision=_HI)
     phot_mags = -2.5 * jnp.log10(jnp.maximum(pflux / tgt.phot_zp, 1e-300))
 
     return ForwardOut(model_data, contrasts, phot_mags, scales, loggs)

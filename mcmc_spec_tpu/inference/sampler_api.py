@@ -1,4 +1,4 @@
-"""emcee-style sampler facade over the TPU ensemble.
+"""emcee-style sampler facade over the on-device ensemble.
 
 The reference drives ``emcee.EnsembleSampler(nwalkers, ndim, logposterior,
 threads=nwalkers)`` (``mft6.py:1491``).  This class offers the familiar

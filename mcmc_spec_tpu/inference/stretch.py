@@ -1,4 +1,4 @@
-"""Affine-invariant ensemble MCMC (Goodman & Weare stretch move), TPU-native.
+"""Affine-invariant ensemble MCMC (Goodman & Weare stretch move), on device.
 
 Replaces the reference's (commented-out) ``emcee.EnsembleSampler`` driver
 (``mft6.py:1472-1529``).  The ensemble is updated red-black: the first half

@@ -1,4 +1,4 @@
-"""Minimal FITS reader: primary HDU skip + binary-table columns.
+"""Minimal FITS reader and writer: primary HDU skip + binary-table columns.
 
 astropy is not part of this framework's dependency set, but the filter
 transmission curves (``bps/*.fits``) and the Vega reference spectrum
@@ -139,3 +139,57 @@ def _parse_bintable(cards, data) -> Dict[str, np.ndarray]:
                 np.float64 if code in "ED" else np.int64
             )
     return out
+
+
+_WRITE_TFORM = {"f8": "D", "f4": "E", "i4": "J", "i8": "K", "i2": "I"}
+
+
+def _card(key: str, value) -> bytes:
+    if isinstance(value, bool):
+        val = f"{'T' if value else 'F':>20}"
+    elif isinstance(value, str):
+        val = f"'{value:<8}'"
+    else:
+        val = f"{value:>20}"
+    return f"{key:<8}= {val}".ljust(80).encode("ascii")
+
+
+def _header(cards) -> bytes:
+    buf = b"".join(_card(k, v) for k, v in cards) + b"END".ljust(80)
+    return buf.ljust(-(-len(buf) // BLOCK) * BLOCK, b" ")
+
+
+def write_bintable(path: str, columns: Dict[str, np.ndarray],
+                   extname: Optional[str] = None) -> None:
+    """Write scalar columns as one BINTABLE extension after an empty primary HDU.
+
+    The inverse of :func:`read_bintable` for the numeric TFORMs it reads
+    (``D``, ``E``, ``J``, ``K``, ``I``); columns must share one length.
+    """
+    cols = {k: np.asarray(v) for k, v in columns.items()}
+    nrows = {len(v) for v in cols.values()}
+    if len(nrows) != 1:
+        raise ValueError(f"columns differ in length: {sorted(nrows)}")
+    (nrows,) = nrows
+    dtypes = [np.dtype(v.dtype).newbyteorder(">") for v in cols.values()]
+    forms = []
+    for name, v in cols.items():
+        key = f"{v.dtype.kind}{v.dtype.itemsize}"
+        if key not in _WRITE_TFORM:
+            raise ValueError(f"column {name!r}: unsupported dtype {v.dtype}")
+        forms.append(_WRITE_TFORM[key])
+    rec = np.empty(nrows, dtype=[(n, dt) for n, dt in zip(cols, dtypes)])
+    for name, v in cols.items():
+        rec[name] = v
+    data = rec.tobytes()
+    cards = [("XTENSION", "BINTABLE"), ("BITPIX", 8), ("NAXIS", 2),
+             ("NAXIS1", rec.dtype.itemsize), ("NAXIS2", nrows), ("PCOUNT", 0),
+             ("GCOUNT", 1), ("TFIELDS", len(cols))]
+    for i, (name, form) in enumerate(zip(cols, forms), start=1):
+        cards += [(f"TTYPE{i}", name), (f"TFORM{i}", form)]
+    if extname:
+        cards.append(("EXTNAME", extname))
+    primary = _header([("SIMPLE", True), ("BITPIX", 8), ("NAXIS", 0), ("EXTEND", True)])
+    with open(path, "wb") as f:
+        f.write(primary + _header(cards) + data)
+        f.write(b"\0" * (-len(data) % BLOCK))

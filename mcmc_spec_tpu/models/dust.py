@@ -4,7 +4,7 @@ The reference queries the Bayestar2019 3-D dust map through ``dustmaps`` *on
 every posterior evaluation* (``mft6.py:1233-1239``): it builds a SkyCoord at
 the walker's current distance, draws map samples, and uses their mean/std as a
 Gaussian prior on Av (with a 0.05 mag sigma floor).  That host round-trip is
-the single worst TPU hazard in the pipeline.
+the single worst accelerator hazard in the pipeline.
 
 Here the map is queried ONCE per target over a log-spaced distance grid at
 init (when ``dustmaps`` is importable), or replaced by a user table or an

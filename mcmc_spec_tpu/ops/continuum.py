@@ -17,6 +17,7 @@ cost is two tiny matvecs.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -52,6 +53,7 @@ def continuum_renorm(data, model, V, Vpinv):
         Vpinv: [k, n] its pseudo-inverse.
     """
     frac = data / model
-    coeffs = Vpinv @ frac
-    fitted = V @ coeffs
+    # full-f32 contractions on a GPU, which may otherwise run them in TF32
+    coeffs = jnp.matmul(Vpinv, frac, precision=jax.lax.Precision.HIGHEST)
+    fitted = jnp.matmul(V, coeffs, precision=jax.lax.Precision.HIGHEST)
     return data / fitted

@@ -1,35 +1,22 @@
-"""Segmented spectrum path for LARGE wavelength axes (nd >> VMEM).
+"""Count-median spectrum lane: the spectrum chi^2 without a sort.
 
-The monolithic Pallas kernels in :mod:`mcmc_spec_tpu.ops.pallas_kernels`
-keep the whole ``D [NO, nd]`` grid block plus several ``[block, nd]``
-temporaries resident in the ~16 MB scoped VMEM — the right design for the
-bundled-data regime (nd ~ 2-4k), impossible for the native-resolution
-regime (nd ~ 10^5-10^6, PHOENIX HiRes; see ``parallel.spec_shard``) where
-a single row no longer fits.  This module re-expresses the same spectrum
-chi^2 semantics as a SEGMENTED pipeline whose working set is a (walker
-block x nd block) tile:
+The sort-based composition (``inference.batched._spec_chi2_xla``) sorts the
+whole ``[nw, nd]`` model for its median, which grows with nd; for the
+native-resolution regime (nd ~ 10^5-10^6, PHOENIX HiRes; see
+``parallel.spec_shard``) the GPU runs the same semantics here, beyond
+``flags.LARGE_ND``, as plain XLA:
 
-* ``model_extinct``     — Pallas, 2-D grid over (walker, nd) tiles: the
-  grid matmul (bf16-split f32 emulation, ``_dot_f32``) fused with CCM89
-  extinction.  One HBM write of ``model [NW, nd]``; D streams tile by tile.
+* the grid matmul fused with CCM89 extinction (one write of the ``[NW, nd]``
+  model);
 * ``median_nonneg_xla`` — the exact rank median as a **k-ary radix count
-  search** in XLA: 2 bits per round (3 thresholds, counts fused into one
-  pass over the bitcast model by XLA's sibling-reduction fusion), 16 rounds
-  for f32 instead of the 31 a bisection needs.  Bit-identical result to
-  ``pallas_kernels._row_median_nonneg`` / the sorted-rank median (it is an
-  exact order-statistic search; tests pin this).  ``psum_axis`` makes the
-  same search distributed — ``parallel.spec_shard`` uses it with the
-  counts psum'd over the spec mesh (16 [nw, 3] int32 psums instead of 31
-  [nw, 1], cutting the ICI latency rounds per eval by ~2x).
-* ``renorm_stats``      — Pallas, nd-tiled with output accumulation: the
-  continuum-renorm projection partials ``(data/model) @ [Vpinv^T | V-moment
-  rows]`` and the median-only residual, reading ``model`` once.
-* ``resid_stats``       — Pallas, nd-tiled accumulation: reconstructs the
-  deg-2 fit from the [B, 3] coefficients and reduces the final chi^2
-  residual, reading ``model`` once more.
-
-Total HBM traffic per eval: 1 write + (rounds + 2) reads of ``model`` —
-the floor for an exact rank median without VMEM residency.
+  search**: 2 bits per round (3 thresholds, whose counts XLA fuses into one
+  pass over the bitcast model), 16 rounds for f32 instead of the 31 a
+  bisection needs and no sort.  Bit-identical to the sorted-rank median (it
+  is an exact order-statistic search; tests pin this).  ``psum_axis`` makes the
+  same search distributed — ``parallel.spec_shard`` uses it with the counts
+  psum'd over the spec mesh;
+* the continuum-renorm projection and the residual sum, which XLA fuses
+  into reductions over the model.
 
 Semantics are pinned against ``inference.batched._spec_chi2_xla`` /
 ``_spec_chi2_xla_median_only`` (tests/test_spec_segmented.py).  Reference
@@ -42,102 +29,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from mcmc_spec_tpu.ops.pallas_kernels import (
-    LN10_04,
-    _div,
-    _dot_f32,
-    _require_dials,
-)
-
-# fused lanes (pallas_kernels) hold D + ~4 [block, nd] temporaries in VMEM;
-# beyond this nd the block math can't fit and dispatch must come here
-LARGE_ND = 4096
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def _pick_nd_block(nd: int, cap: int = 2048) -> int | None:
-    """Largest power-of-two tile (>=128 Mosaic lane rule) dividing ``nd``."""
-    b = cap
-    while b >= 128:
-        if nd % b == 0:
-            return b
-        b //= 2
-    return None
-
-
-def _pad_walkers(arrs, NW: int, block: int, fills):
-    """Pad the walker axis up to a block multiple (rows sliced off after)."""
-    if NW % block == 0:
-        return arrs, NW
-    pad = -(-NW // block) * block - NW
-    out = []
-    for a, fill in zip(arrs, fills):
-        pad_block = jnp.full((pad,) + a.shape[1:], fill, a.dtype)
-        out.append(jnp.concatenate([a, pad_block], axis=0))
-    return out, NW + pad
-
-
-# ------------------------------------------------------------ model kernel
-def _model_extinct_kernel(Wc_ref, av_ref, D_ref, kd_ref, out_ref, *, mm_passes):
-    model = _dot_f32(Wc_ref[:], D_ref[:], mm_passes)
-    av = av_ref[:]
-    out_ref[:] = model * jnp.where(av > 0, jnp.exp(LN10_04 * av * kd_ref[:]), 1.0)
-
-
-@functools.partial(jax.jit, static_argnames=("mm_passes", "block_w", "interpret"))
-def model_extinct(Wcomb, av, D_flat, ext_k_data, mm_passes: int,
-                  block_w: int = 256, interpret: bool | None = None):
-    """Extincted model spectra ``[NW, nd]`` via nd-tiled Pallas matmul.
-
-    The large-nd equivalent of the first two lines of
-    ``pallas_kernels._spectrum_block``; D streams through VMEM one
-    ``[NO, bnd]`` tile at a time.  Falls back to XLA when no power-of-two
-    tile divides ``nd`` (callers control nd; the sp path pads it anyway).
-    """
-    if interpret is None:
-        interpret = _interpret()
-    NW, NO = Wcomb.shape
-    nd = D_flat.shape[1]
-    f32 = jnp.float32
-    bnd = _pick_nd_block(nd)
-    if bnd is None:
-        model = jnp.matmul(Wcomb, D_flat, precision=jax.lax.Precision.HIGHEST)
-        trans = jnp.where(
-            (av > 0)[:, None],
-            jnp.exp(LN10_04 * av[:, None] * ext_k_data[None, :]), 1.0)
-        return (model * trans).astype(f32)
-
-    block_w = min(block_w, NW) if NW % block_w else block_w
-    (Wcomb, av), NWp = _pad_walkers(
-        [Wcomb.astype(f32), av.astype(f32)], NW, block_w, [1.0, 0.0])
-    out = pl.pallas_call(
-        functools.partial(_model_extinct_kernel, mm_passes=mm_passes),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(NWp // block_w, nd // bnd),
-            in_specs=[
-                pl.BlockSpec((block_w, NO), lambda i, j: (i, 0)),
-                pl.BlockSpec((block_w, 1), lambda i, j: (i, 0)),
-                pl.BlockSpec((NO, bnd), lambda i, j: (0, j)),
-                pl.BlockSpec((1, bnd), lambda i, j: (0, j)),
-            ],
-            out_specs=pl.BlockSpec((block_w, bnd), lambda i, j: (i, j)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((NWp, nd), f32),
-        interpret=interpret,
-    )(
-        Wcomb,
-        av.reshape(NWp, 1),
-        D_flat.astype(f32),
-        ext_k_data.astype(f32).reshape(1, nd),
-    )
-    return out[:NW]
+_HI = jax.lax.Precision.HIGHEST
+LN10_04 = -0.4 * 2.302585092994046  # -0.4 * ln(10)
 
 
 # ------------------------------------------------------------ k-ary median
@@ -149,17 +43,15 @@ def _kary_order_stat_bits(mi, rank, total_bits: int, psum_axis=None,
     power-of-two width with lo's low bits zero, so the three quartile
     thresholds ``lo + k*2^(shift-2) - 1`` partition it EXACTLY — after
     ceil(total_bits/2) rounds the interval has width 1 and the result equals
-    the bisection's (pallas_kernels._row_order_stat_bits) bit for bit, in
-    half the passes over the data / half the psum latency rounds.
+    a one-bit bisection's bit for bit, in half the passes over the data /
+    half the psum latency rounds.
 
     ``iters`` (None/>=total_bits = exact) is the FAST-MEDIAN dial in
-    single-bit units, contract-matched to
-    ``pallas_kernels._row_order_stat_bits(iters, midpoint=True)``: resolve
-    at least ``iters`` bits (ceil(iters/2) 2-bit rounds) and return the
+    single-bit units: resolve at least ``iters`` bits (ceil(iters/2) 2-bit rounds) and return the
     MIDPOINT of the remaining 2^(total_bits - 2*ceil(iters/2))-wide
     interval — the same worst-case bit-interval width as ``iters``
-    bisection passes, so the round-4 alpha^2 tempering bound (0.027 sigma
-    at iters=14, renorm path only) applies unchanged.  Each round is one
+    bisection passes, so the alpha^2 tempering bound (0.027 sigma at
+    iters=14, renorm path only) applies unchanged.  Each round is one
     pass over the data, so iters=14 costs 7 passes where the exact search
     costs 16.
 
@@ -183,7 +75,7 @@ def _kary_order_stat_bits(mi, rank, total_bits: int, psum_axis=None,
     def round2(shift, lo):
         # quartile thresholds of [lo, lo + 2^(shift)) — XLA fuses the three
         # sibling count reductions into one pass over mi, and the counts
-        # ride ICI as ONE [B, 3] psum (not three launches — the collective
+        # travel as ONE [B, 3] psum (not three launches — the collective
         # census in bench_suite.py `spshard` pins the per-eval count)
         q = one << jnp.asarray(shift - 2, itype)
         m1 = lo + q - one
@@ -216,18 +108,16 @@ def median_nonneg_xla(model, n_true, psum_axis=None, iters: int | None = None):
     """np.median over (globally) non-negative rows, count-based.
 
     The large-nd / distributed median: same semantics as the sorted-rank
-    median (``batched._spec_chi2_xla``) and the in-kernel radix select,
-    without a sort and without VMEM residency.  ``n_true`` is the global
+    median (``batched._spec_chi2_xla``), without a sort.  ``n_true`` is the global
     count of REAL points (padding carries the 1e30 sentinel).  Non-negative
     precondition as in ``parallel.spec_shard._dist_median_nonneg``.
 
-    ``iters`` (None/0/31 = exact) is the fast-median dial, mirroring
-    ``pallas_kernels._row_median_nonneg``: iters < 31 returns the
+    ``iters`` (None/0/31 = exact) is the fast-median dial: iters < 31 returns the
     bit-interval midpoint after ceil(iters/2) 2-bit rounds and SKIPS the
     even-rank upper-middle refinement (2 further full passes over the
     data, plus a pmin when distributed) — valid only on the renorm scoring
     path, whose alpha^2 factorization bounds the posterior shift (0.027
-    sigma at 14; benchmarks/RESULTS.md).  Exact mode is bit-identical to
+    sigma at 14; scripts/median_tempering_bound_cpu.py).  Exact mode is bit-identical to
     the sorted-rank median; both modes are bit-identical sharded vs
     single-chip (counts are psum-additive).
 
@@ -253,8 +143,7 @@ def median_nonneg_xla(model, n_true, psum_axis=None, iters: int | None = None):
                                iters=eff_iters)
     x1 = jax.lax.bitcast_convert_type(v1, model.dtype)
     if not exact:
-        # bracket midpoint; no upper-middle refinement (matches
-        # _row_median_nonneg's iters<31 branch)
+        # bracket midpoint; no upper-middle refinement
         return x1[:, 0]
 
     # upper middle (even n_true): x1 again if it repeats past rank r1, else
@@ -271,191 +160,38 @@ def median_nonneg_xla(model, n_true, psum_axis=None, iters: int | None = None):
     return med[:, 0]
 
 
-# ------------------------------------------------------- stat kernels
-def _renorm_partial_kernel(scale_ref, model_ref, data_ref, Vp_ref, out_ref,
-                           *, recip):
-    """[B, 8] partials: rows 0-2 = (data / (scale*model)) @ Vpinv^T tile."""
-    j = pl.program_id(1)
-    frac = _div(data_ref[:], scale_ref[:] * model_ref[:], recip)  # [B, bnd]
-    Vp = Vp_ref[:]
-    c0 = jnp.sum(frac * Vp[0][None, :], axis=1, keepdims=True)
-    c1 = jnp.sum(frac * Vp[1][None, :], axis=1, keepdims=True)
-    c2 = jnp.sum(frac * Vp[2][None, :], axis=1, keepdims=True)
-    part = jnp.concatenate(
-        [c0, c1, c2, jnp.zeros((c0.shape[0], 125), jnp.float32)], axis=1)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:] = part
-
-    @pl.when(j != 0)
-    def _acc():
-        out_ref[:] += part
-
-
-def _resid_partial_kernel(scale_ref, coef_ref, model_ref, data_ref, ierr_ref,
-                          VT_ref, out_ref, *, recip, renorm):
-    """[B, 128] partial chi^2 sums (col 0), nd-tiled accumulation."""
-    j = pl.program_id(1)
-    model = scale_ref[:] * model_ref[:]
-    if renorm:
-        VT = VT_ref[:]
-        fitted = (coef_ref[:, 0:1] * VT[0][None, :]
-                  + coef_ref[:, 1:2] * VT[1][None, :]
-                  + coef_ref[:, 2:3] * VT[2][None, :])
-        data_renorm = _div(data_ref[:], fitted, recip)
-    else:
-        data_renorm = data_ref[:]
-    resid = (model - data_renorm) * ierr_ref[:]
-    part = jnp.sum(resid * resid, axis=1, keepdims=True)
-    part = jnp.concatenate(
-        [part, jnp.zeros((part.shape[0], 127), jnp.float32)], axis=1)
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[:] = part
-
-    @pl.when(j != 0)
-    def _acc():
-        out_ref[:] += part
-
-
-def _nd_tiled_call(kernel, specs, out_cols, NWp, nd, bnd, block_w, args,
-                   interpret):
-    return pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(NWp // block_w, nd // bnd),
-            in_specs=specs,
-            out_specs=pl.BlockSpec((block_w, out_cols), lambda i, j: (i, 0)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((NWp, out_cols), jnp.float32),
-        interpret=interpret,
-    )(*args)
-
-
-@functools.partial(jax.jit, static_argnames=("recip", "block_w", "interpret"))
-def renorm_partials(model, scale, data_flux, Vpinv, recip: int,
-                    block_w: int = 256, interpret: bool | None = None):
-    """Per-walker [B, 3] continuum projection partials, reading model once.
-
-    ``scale``: [B] median-match factors (med_data / med).  Partials are
-    LOCAL sums over this model's nd axis — the sp path psums them over the
-    spec mesh before ``resid_chi2``.
-    """
-    if interpret is None:
-        interpret = _interpret()
-    NW = model.shape[0]
-    nd = model.shape[1]
-    f32 = jnp.float32
-    bnd = _pick_nd_block(nd)
-    if bnd is None:
-        frac = data_flux[None, :] / (scale[:, None] * model)
-        return jnp.matmul(frac, Vpinv.T, precision=jax.lax.Precision.HIGHEST)
-    block_w = min(block_w, NW) if NW % block_w else block_w
-    (model, scale), NWp = _pad_walkers(
-        [model.astype(f32), scale.astype(f32)], NW, block_w, [1.0, 1.0])
-    specs = [
-        pl.BlockSpec((block_w, 1), lambda i, j: (i, 0)),
-        pl.BlockSpec((block_w, bnd), lambda i, j: (i, j)),
-        pl.BlockSpec((1, bnd), lambda i, j: (0, j)),
-        pl.BlockSpec((3, bnd), lambda i, j: (0, j)),
-    ]
-    out = _nd_tiled_call(
-        functools.partial(_renorm_partial_kernel, recip=recip),
-        specs, 128, NWp, nd, bnd, block_w,
-        (scale.reshape(NWp, 1), model,
-         data_flux.astype(f32).reshape(1, nd), Vpinv.astype(f32)),
-        interpret,
-    )
-    return out[:NW, :3]
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("recip", "renorm", "block_w", "interpret"))
-def resid_chi2(model, scale, coeffs, data_flux, data_err, V, recip: int,
-               renorm: bool = True, block_w: int = 256,
-               interpret: bool | None = None):
-    """Per-walker chi^2 residual sum (LOCAL over this model's nd axis)."""
-    if interpret is None:
-        interpret = _interpret()
-    NW, nd = model.shape
-    f32 = jnp.float32
-    bnd = _pick_nd_block(nd)
-    inv_err = 1.0 / data_err.astype(f32)
-    if bnd is None:
-        m = scale[:, None] * model
-        if renorm:
-            fitted = jnp.matmul(coeffs, V.T, precision=jax.lax.Precision.HIGHEST)
-            data_ref = data_flux[None, :] / fitted
-        else:
-            data_ref = data_flux[None, :]
-        resid2 = ((m - data_ref) * inv_err[None, :]) ** 2
-        resid2 = jnp.where(jnp.isfinite(resid2), resid2, 0.0)
-        return jnp.sum(resid2, axis=1)
-    block_w = min(block_w, NW) if NW % block_w else block_w
-    if coeffs is None:
-        coeffs = jnp.zeros((NW, 3), f32)
-    (model, scale, coeffs), NWp = _pad_walkers(
-        [model.astype(f32), scale.astype(f32), coeffs.astype(f32)],
-        NW, block_w, [1.0, 1.0, 1.0])
-    specs = [
-        pl.BlockSpec((block_w, 1), lambda i, j: (i, 0)),
-        pl.BlockSpec((block_w, 3), lambda i, j: (i, 0)),
-        pl.BlockSpec((block_w, bnd), lambda i, j: (i, j)),
-        pl.BlockSpec((1, bnd), lambda i, j: (0, j)),
-        pl.BlockSpec((1, bnd), lambda i, j: (0, j)),
-        pl.BlockSpec((3, bnd), lambda i, j: (0, j)),
-    ]
-    out = _nd_tiled_call(
-        functools.partial(_resid_partial_kernel, recip=recip, renorm=renorm),
-        specs, 128, NWp, nd, bnd, block_w,
-        (scale.reshape(NWp, 1), coeffs, model,
-         data_flux.astype(f32).reshape(1, nd),
-         # padded points carry err=inf -> inv 0, residual exactly 0
-         inv_err.reshape(1, nd), V.T.astype(f32)),
-        interpret,
-    )
-    return out[:NW, 0]
-
-
 # ------------------------------------------------------------- composition
-@functools.partial(jax.jit, static_argnames=("iters", "mm_passes", "recip",
-                                              "renorm", "interpret"))
+@functools.partial(jax.jit, static_argnames=("iters", "renorm"))
 def spectrum_chi2_segmented(
     Wcomb, av, D_flat, ext_k_data, data_flux, data_err, V, Vpinv, med_data,
-    n_data_true, iters: int | None = None, mm_passes: int | None = None,
-    recip: int | None = None, renorm: bool = True,
-    interpret: bool | None = None,
+    n_data_true, *, iters: int, renorm: bool = True,
 ):
-    """Mean spectrum chi^2 for large nd — the segmented single-chip lane.
+    """Mean spectrum chi^2 through the count median — the large-nd lane.
 
     Same semantics as ``batched._spec_chi2_xla`` (renorm=True) /
     ``_spec_chi2_xla_median_only`` (renorm=False): rank median over the
     real (unpadded) points, scaled by med_data, deg-2 continuum renorm of
     the data, mean residual over n_data_true.  ``iters`` is the pack-time
-    fast-median dial: the round-5 attribution (scripts/attr_segmented.py)
-    measured the median at ~65-70% of this lane (it re-reads the [NW, nd]
-    model once per count round — 16 rounds + 2 even-rank scans exact), so
-    iters=14 (7 rounds, bracket midpoint, no even-rank scans) cuts the
-    lane's HBM traffic roughly in half at the same accuracy contract as
-    the fused kernel's 14-pass production default (alpha^2 bound, 0.027
-    sigma).  The renorm=False (annealer) convention has no such
-    protection and always gets the exact median, same policy as
+    fast-median dial: the count median re-reads the ``[NW, nd]`` model once
+    per round (16 rounds + 2 even-rank scans exact), and iters=14 (7
+    rounds, bracket midpoint, no even-rank scans) holds to the 14-pass
+    accuracy contract (alpha^2 bound, 0.027 sigma).  The renorm=False (annealer) convention has no such protection
+    and always gets the exact median, same policy as
     ``batched.optimizer_chi2_batch``.
     """
-    iters, mm_passes, recip = _require_dials(iters, mm_passes, recip)
-    model = model_extinct(Wcomb, av, D_flat, ext_k_data, mm_passes,
-                          interpret=interpret)
-    med = median_nonneg_xla(model, n_data_true,
-                            iters=iters if renorm else 31)
-    scale = jnp.asarray(med_data, jnp.float32) / med
+    if not 0 <= iters <= 31:
+        raise ValueError(f"iters={iters}: need 0..31 (0 and 31 are exact)")
+    model = jnp.matmul(Wcomb, D_flat, precision=_HI)
+    trans = jnp.where((av > 0)[:, None],
+                      jnp.exp(LN10_04 * av[:, None] * ext_k_data[None, :]), 1.0)
+    model = model * trans
+    med = median_nonneg_xla(model, n_data_true, iters=iters if renorm else 31)
+    model = model * (med_data / med)[:, None]
     if renorm:
-        coeffs = renorm_partials(model, scale, data_flux, Vpinv, recip,
-                                 interpret=interpret)
+        coeffs = jnp.matmul(data_flux[None, :] / model, Vpinv.T, precision=_HI)
+        data_ref = data_flux[None, :] / jnp.matmul(coeffs, V.T, precision=_HI)
     else:
-        coeffs = None
-    total = resid_chi2(model, scale, coeffs, data_flux, data_err, V, recip,
-                       renorm=renorm, interpret=interpret)
-    return total / jnp.asarray(n_data_true, jnp.float32)
+        data_ref = data_flux[None, :]
+    resid2 = ((model - data_ref) / data_err) ** 2
+    resid2 = jnp.where(jnp.isfinite(resid2), resid2, 0.0)  # padded: err=inf
+    return jnp.sum(resid2, axis=1) / jnp.asarray(n_data_true, model.dtype)

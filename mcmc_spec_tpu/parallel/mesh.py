@@ -6,13 +6,13 @@ communication is the filesystem (SURVEY.md section 2, parallelism table).
 Here the scaling axes are:
 
 * ``walkers`` — the ensemble axis, sharded across chips (pure data parallel;
-  the only cross-chip communication the stretch move needs is an
-  ``all_gather`` of the complement half's coordinates, a few KB, riding ICI).
+  the only cross-device communication the stretch move needs is an
+  ``all_gather`` of the complement half's coordinates, a few KB).
 * ``targets`` — independent KOI systems batched in the same jitted program
   (fleet mode), also data-parallel.
 
-Meshes are built over whatever devices exist — 1 real TPU chip, a v5e slice,
-or the 8-device virtual CPU mesh used by the test suite.
+Meshes are built over whatever devices exist — the GPUs of one host, or the
+8-device virtual CPU mesh used by the test suite.
 """
 from __future__ import annotations
 
@@ -51,14 +51,12 @@ def parse_wxs(mesh) -> tuple[int, int] | None:
 def make_mesh(n_devices: int | None = None, axis_names=("walkers",), devices=None) -> Mesh:
     """1-D (or reshaped N-D) mesh over the first ``n_devices`` devices.
 
-    Falls back to the virtual CPU device set when the default backend exposes
-    fewer devices than requested (the multichip dry-run path: one physical
-    TPU + ``--xla_force_host_platform_device_count=N`` CPUs).
+    ``devices`` defaults to the default backend's; asking for more than
+    there are raises (a caller that wants virtual CPU devices passes
+    ``jax.devices("cpu")`` itself).
     """
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            devices = jax.devices("cpu")
     if n_devices is None:
         n_devices = len(devices)
     if len(devices) < n_devices:

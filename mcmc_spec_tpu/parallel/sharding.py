@@ -4,7 +4,7 @@ Layout: the ensemble is ``[2, nh, ndim]`` (red/black halves); the half axis is
 replicated and the ``nh`` walker axis is sharded over the mesh's ``walkers``
 axis.  A stretch-move half-update needs the *entire* complement half (each
 walker draws a random partner from it), which costs one ``all_gather`` of
-``nh x ndim`` floats over ICI per half — a few KB — after which everything is
+``nh x ndim`` floats per half — a few KB — after which everything is
 local.  This is the whole communication surface of the sampler; compare the
 reference's fork+pickle process pool (``mft6.py:1744-1755``).
 

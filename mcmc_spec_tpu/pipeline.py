@@ -1,6 +1,6 @@
 """End-to-end fit pipeline: config -> packed target -> optimize -> MCMC -> report.
 
-The TPU-native equivalent of the reference's ``main`` (``mft6.py:3450-3711``),
+The accelerator equivalent of the reference's ``main`` (``mft6.py:3450-3711``),
 with the same stage structure and artifact outputs:
 
 * **setup**: parse the param file, load + mask + normalise the data spectrum,

@@ -1,4 +1,4 @@
-"""Autocorrelation-gate cost: geometric vs per-chunk cadence (VERDICT r3 #7).
+"""Autocorrelation-gate cost: geometric vs per-chunk cadence.
 
 The round-3 gate re-concatenated the accumulated 256-walker sub-chain and
 re-ran the FFT estimator from scratch EVERY chunk — O(n^2) total traffic

@@ -1,4 +1,4 @@
-"""Annealer attempt-budget divergence measurement (round 5, VERDICT r4 #7).
+"""Annealer attempt-budget divergence measurement.
 
 The reference's out-of-bounds branch burns ``total_n`` once per reflection
 increment — +100 K per temperature step, +0.1 mag Av, +0.01 R, 1%

@@ -1,17 +1,20 @@
-"""End-to-end posterior impact of the fast-median dial (VERDICT r2 item 5).
+"""End-to-end posterior impact of the fast-median dial.
 
 The radix-select median's pass count (``MCMC_SPEC_FAST_MEDIAN`` /
 ``PackedTarget.median_iters``) trades spectrum-scale accuracy for sampler
-throughput (31 = exact, 20 = +~22%).  Round 2 only measured the *scale
-error* (<2.5e-4 relative at 20 passes); this script measures what actually
-matters — posterior median/sigma shifts — by running the koi2298-shaped
-synthetic-truth fit end-to-end on TPU at 31/25/20 passes with identical RNG
-and diffing the marginals.
+throughput.  This script measures what matters — posterior median/sigma
+shifts — by running the koi2298-shaped synthetic-truth fit end-to-end at
+31/25/20 passes with identical RNG and diffing the marginals.
 
-Run on TPU:
-    nohup python scripts/fast_median_impact.py > /tmp/fm_impact.log 2>&1 &
+Run on a GPU:
+    python scripts/fast_median_impact.py
 
-Decision rule (recorded in benchmarks/RESULTS.md): if the 25-pass and
+Only the count-median lane honours the dial, and the GPU takes it beyond
+``flags.LARGE_ND`` data points; the sort lane (every other case) is exact at
+every setting.  So the target spans the koi2298 wavelength range at
+nd = 2 x LARGE_ND.
+
+Decision rule: if the 25-pass and
 20-pass shifts are well below 0.1 of the posterior sigma on every parameter,
 the fast mode is a safe default; otherwise exact stays default.
 """
@@ -30,6 +33,7 @@ sys.path.insert(0, ".")
 from mcmc_spec_tpu.bench_target import build_bench_target, init_walker_batch
 from mcmc_spec_tpu.inference.batched import log_posterior_batch
 from mcmc_spec_tpu.inference.stretch import init_ensemble, run_ensemble
+from mcmc_spec_tpu.utils.flags import LARGE_ND
 
 NWALK = 2048
 NBURN = 3000
@@ -53,7 +57,7 @@ def run_chain(tgt, truth, iters):
 
 def main():
     print(f"devices: {jax.devices()}", flush=True)
-    tgt, truth = build_bench_target(jnp.float32)
+    tgt, truth = build_bench_target(jnp.float32, nd=2 * LARGE_ND)
     chains = {it: run_chain(tgt, truth, it) for it in (31, 14, 12)}
 
     base = chains[31]

@@ -7,14 +7,11 @@ fast-median posterior perturbation on the renorm path to
     dL = -0.5 * w * chi_spec * ((1+eps)^-2 - 1),   w = spectrum_weight*(nc+np)
 
 with eps the RELATIVE median error of the k-pass midpoint rank search.
-Both ingredients are computable on CPU: ``_row_order_stat_bits`` /
-``_row_median_nonneg`` are plain JAX (the same bit-level binary search the
-Pallas kernel embeds, pinned against it by tests/test_pallas_kernel.py),
-and chi_spec comes from the exact XLA path.  This gives the ACCURACY half
-of the pass-count decision without TPU access (the direct on-device
-measurement, scripts/median_tempering_bound.py, stays queued as
-confirmation); per-pass throughput comes from the round-3 measured
-marginal (1.37 ns/pass/eval) and the driver's round-end bench.
+Both ingredients are computable on CPU: the count median
+(``spec_segmented.median_nonneg_xla``, the lane that honours the dial) is
+plain JAX, and chi_spec comes from the exact XLA path.  This gives the ACCURACY half
+of the pass-count decision on the CPU; the throughput half is
+``bench.py`` on the GPU.
 
 Also reports the ANNEALER path (renorm=False) directly: there the median
 error perturbs the residual itself (no factorization), so its Δ(w·chi) is
@@ -45,7 +42,12 @@ import jax.numpy as jnp
 from mcmc_spec_tpu.bench_target import build_bench_target, init_walker_batch
 from mcmc_spec_tpu.inference import batched
 from mcmc_spec_tpu.inference.stretch import init_ensemble, run_ensemble
-from mcmc_spec_tpu.ops.pallas_kernels import _row_median_nonneg
+from mcmc_spec_tpu.ops.spec_segmented import median_nonneg_xla
+
+
+def kernel_median(model, iters):
+    """The count median's k-pass result over every column of ``model``."""
+    return median_nonneg_xla(model, model.shape[1], iters=iters)
 
 NWALK = 1024
 NBURN = 1500
@@ -88,8 +90,7 @@ def chi_median_only_with_med(model, med, tgt):
 
 def main():
     tgt, truth = build_bench_target(jnp.float32)
-    tgt = dataclasses.replace(tgt, median_iters=31, matmul_passes=6,
-                              recip_newton=0)
+    tgt = dataclasses.replace(tgt, median_iters=31)
     logp = jax.jit(lambda b: batched.log_posterior_batch(b, tgt))
 
     coords = init_walker_batch(tgt, truth, NWALK, jnp.float32)
@@ -101,7 +102,7 @@ def main():
     print(f"equilibrated: {int(fin.sum())}/{NWALK} finite logp", flush=True)
 
     model = jax.jit(lambda c: model_and_exact(c, tgt))(eq)
-    med_exact = np.asarray(_row_median_nonneg(model, iters=31)[:, 0], np.float64)
+    med_exact = np.asarray(kernel_median(model, 31), np.float64)
     w = float(tgt.spectrum_weight) * float(
         np.asarray(tgt.n_contrast_true) + np.asarray(tgt.n_phot_true))
     chi_ex = np.asarray(chi_renorm_with_med(
@@ -115,7 +116,7 @@ def main():
     out = {}
     for k in (20, 16, 14, 12, 10):
         med_k = np.asarray(
-            _row_median_nonneg(model, iters=k)[:, 0], np.float64)
+            kernel_median(model, k), np.float64)
         eps = med_k[fin] / med_exact[fin] - 1.0
         # tempering formula (the structural bound's quantity)
         dL_temper = -0.5 * w * chi_ex[fin] * ((1.0 + eps) ** -2 - 1.0)

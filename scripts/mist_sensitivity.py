@@ -1,6 +1,6 @@
 """Posterior-impact study of the builtin-MIST table systematic.
 
-VERDICT r2 next-round item 1a: the builtin isochrone substitute deviates from
+The builtin isochrone substitute deviates from
 genuine MIST v1.2 by a ~+8% typical radius systematic (tests/test_models.py::
 TestMistV12Goldens), while the reference's radius prior holds walkers to 2% of
 the model radius (mft6.py:1268).  This script measures, on the synthetic-truth

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Per-component device timing of the bench workload (VERDICT r1 item 7).
+"""Per-component device timing of the bench workload.
 
 Breaks one 8192-walker log-posterior evaluation into its pieces and times
 each with ``device_loop_time`` (dispatch-free), so we know exactly where the
-remaining non-kernel time goes before fusing more into the Pallas kernel.
+time outside the spectrum block goes.  Run on a GPU.
 """
 import json
 import os
@@ -42,22 +42,21 @@ def main():
     t("log_prior_batch", lambda q: batched.log_prior_batch(q, tgt), p)
     t("forward_small", lambda q: batched._forward_small(q, tgt)[0], p)
 
-    # kernel alone (with Wcomb/av precomputed)
-    from mcmc_spec_tpu.ops.pallas_kernels import resolve_dials, spectrum_chi2
+    # the spectrum lanes alone (with Wcomb/av precomputed)
+    from mcmc_spec_tpu.ops.spec_segmented import spectrum_chi2_segmented
 
     _, _, _, _, Wcomb = batched._forward_small(p, tgt)
     av = p[:, tgt.nspec]
     D_flat = tgt.D.reshape(nT * nG, nd)
-    it, mm, rn = resolve_dials(tgt)
-    t("pallas_spectrum_chi2",
-      lambda W: spectrum_chi2(W, av, D_flat, tgt.ext_k_data, tgt.data_flux,
-                              tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data,
-                              iters=it, mm_passes=mm, recip=rn), Wcomb)
+    t("xla_sort_spectrum_chi2", lambda W: batched._spec_chi2_xla(W, av, tgt), Wcomb)
+    t("xla_count_spectrum_chi2",
+      lambda W: spectrum_chi2_segmented(W, av, D_flat, tgt.ext_k_data, tgt.data_flux,
+                                        tgt.data_err, tgt.V, tgt.Vpinv, tgt.med_data,
+                                        tgt.n_data_true, iters=tgt.median_iters), Wcomb)
 
-    # pure matmul cost floor for the same shape (bf16x6 equivalent = HIGHEST)
+    # pure matmul cost floor for the same shape (full f32)
     t("matmul_only_f32hi",
       lambda W: jnp.matmul(W, D_flat, precision=jax.lax.Precision.HIGHEST), Wcomb)
-    t("matmul_only_bf16_1pass", lambda W: jnp.matmul(W, D_flat), Wcomb)
 
     # stretch step end-to-end (2 half updates = 1 eval/walker + RNG + bookkeeping)
     logp = lambda q: batched.log_posterior_batch(q, tgt)

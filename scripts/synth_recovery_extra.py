@@ -1,4 +1,4 @@
-"""Triple + nospec truth-recovery lanes (round 5, VERDICT r4 weak #6 / next #5).
+"""Triple + nospec truth-recovery lanes.
 
 The round-4 recovery matrix (``synth_recovery_matrix.py``) covers the
 binary layout only; the triple (ndim-8) and nospec (spectrum_weight=0)
@@ -20,7 +20,7 @@ recovered-vs-injected z-scores:
 Acceptance (matrix convention): per-parameter z across the independent
 noise seeds must show no systematic bias (|mean z| small) and no
 overconfident widths; a single |z| ~ 2.5-3 among 8 params x N seeds is an
-ordinary N(0,1) tail draw, not a failure.  Run on TPU:
+ordinary N(0,1) tail draw, not a failure.  Run on a GPU:
 
     nohup python scripts/synth_recovery_extra.py > /tmp/r5/recovery_extra.log 2>&1 &
 """

@@ -1,4 +1,4 @@
-"""12-fixture synthetic-truth recovery matrix (VERDICT r3 next #8).
+"""12-fixture synthetic-truth recovery matrix.
 
 The reference's only ground truth is its bundled ``Data/synth_spec_{T1}_{T2}``
 fixtures (SURVEY §4.1): composite binaries at T1 in {3850, 4200} against six
@@ -13,7 +13,7 @@ PRODUCTION accuracy dials and publish recovered-vs-injected in posterior-sigma
 units.
 
 Acceptance: every parameter within the 0.5 sigma north star
-(BASELINE.json).  Run on TPU:
+(BASELINE.md).  Run on a GPU:
 
     nohup python scripts/synth_recovery_matrix.py > /tmp/recovery.log 2>&1 &
 """
@@ -30,7 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # --cpu: run the sweep on the host (XLA path, exact-median arithmetic — the
 # accuracy dials are kernel-only).  Validates the two-stage pipeline's truth
-# recovery across the contrast range without a TPU; the default TPU run
+# recovery across the contrast range without a GPU; the default GPU run
 # additionally exercises the production dials.  Must precede the jax import.
 CPU_MODE = "--cpu" in sys.argv
 if CPU_MODE:

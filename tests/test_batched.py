@@ -153,15 +153,12 @@ class TestAlphaSquaredFactorization:
         base = self._chi(tgt, 1.0)
         np.testing.assert_allclose(self._chi(tgt, 1.5), 2.25 * base, rtol=1e-12)
 
-    def test_kernel_power_of_two_exact_all_dials(self):
-        """The Pallas kernel is exactly 2-homogeneous even through the radix
-        bit-search median (bit patterns shift by one exponent step), the
-        bf16-split matmul, and the magic-seed reciprocal (its seed constant
-        commutes with exponent shifts) — at BOTH the exact and the
-        production-fast dial settings."""
-        import dataclasses
-
-        from mcmc_spec_tpu.ops.pallas_kernels import spectrum_chi2
+    def test_count_lane_power_of_two_exact_all_dials(self):
+        """The count-median lane is exactly 2-homogeneous even through the
+        fast bit-search median (its bracket boundaries are aligned, so an
+        exponent step shifts them exactly) — at BOTH the exact and the
+        production-fast pass counts."""
+        from mcmc_spec_tpu.ops.spec_segmented import spectrum_chi2_segmented
 
         st, tgt = make_setup(dtype=jnp.float32)
         P = jnp.asarray(np.asarray(_batch_near_truth(st, n=8, frac_oob=0.0)),
@@ -170,13 +167,11 @@ class TestAlphaSquaredFactorization:
         nT, nG, nd = tgt.D.shape
         args = (Wcomb, P[:, 2], tgt.D.reshape(nT * nG, nd), tgt.ext_k_data,
                 tgt.data_flux, tgt.data_err, tgt.V, tgt.Vpinv)
-        for iters, mm, rn in [(31, 6, 0), (16, 3, 2), (12, 3, 2)]:
-            base = np.asarray(spectrum_chi2(
-                *args, tgt.med_data, interpret=True,
-                iters=iters, mm_passes=mm, recip=rn))
-            doubled = np.asarray(spectrum_chi2(
-                *args, tgt.med_data * 2.0, interpret=True,
-                iters=iters, mm_passes=mm, recip=rn))
+        for iters in (31, 16, 12):
+            base = np.asarray(spectrum_chi2_segmented(
+                *args, tgt.med_data, tgt.n_data_true, iters=iters))
+            doubled = np.asarray(spectrum_chi2_segmented(
+                *args, tgt.med_data * 2.0, tgt.n_data_true, iters=iters))
             np.testing.assert_array_equal(doubled, 4.0 * base)
 
     def test_median_only_no_factorization(self):

@@ -7,12 +7,6 @@ import pytest
 
 from mcmc_spec_tpu.models.synthetic import synthetic_spectrum
 
-BPS_DIR = "/root/reference/bps"
-
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(BPS_DIR), reason="filter curve directory unavailable"
-)
-
 
 def _write_btsettl_grid(dirname, temps, loggs, specrange=(2900.0, 26100.0), step=2.0):
     os.makedirs(dirname, exist_ok=True)
@@ -26,7 +20,7 @@ def _write_btsettl_grid(dirname, temps, loggs, specrange=(2900.0, 26100.0), step
     return dirname
 
 
-def test_btsettl_pipeline(tmp_path):
+def test_btsettl_pipeline(tmp_path, bps_dir):
     os.chdir(tmp_path)
     grid_dir = _write_btsettl_grid(
         str(tmp_path / "BT-Settl_M-0.0a+0.0"),
@@ -79,7 +73,7 @@ ndust 0
 nburn 10
 nsteps 30
 real_values [0,0,0,0,0,0]
-bps_dir {BPS_DIR}
+bps_dir {bps_dir}
 grid_dir {grid_dir}
 """)
     cfg = FitConfig.from_file(str(param))

@@ -194,42 +194,6 @@ class TestBimodalDecompose:
         assert abs(mu - 5000) < 50
 
 
-class TestTentConstsEquivalence:
-    """The fused kernel's folded tent constants must reproduce tent_weights."""
-
-    def _tw_via_consts(self, xs, q):
-        from mcmc_spec_tpu.ops.pallas_kernels import _tent_consts, _tent_w
-
-        tc = _tent_consts(jnp.asarray(xs, jnp.float32))
-        return np.asarray(_tent_w(tc, jnp.asarray(q, jnp.float32)[:, None]))
-
-    def test_random_grids(self):
-        rng = np.random.RandomState(1)
-        for trial in range(20):
-            n = rng.randint(2, 30)
-            xs = np.sort(rng.uniform(-3, 3, n))
-            while np.any(np.diff(xs) < 1e-3):
-                xs = np.sort(rng.uniform(-3, 3, n))
-            q = rng.uniform(-4, 4, 33)
-            ref = np.asarray(tent_weights(jnp.asarray(xs, jnp.float32),
-                                          jnp.asarray(q, jnp.float32)))
-            got = self._tw_via_consts(xs, q)
-            np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6,
-                                       err_msg=f"trial {trial}")
-
-    def test_single_interval_axis(self):
-        """n=2 nodes: both edge formulas active, interior absent."""
-        xs = np.array([4.0, 4.5])
-        q = np.array([3.0, 4.0, 4.2, 4.5, 6.0])
-        ref = np.asarray(tent_weights(jnp.asarray(xs, jnp.float32),
-                                      jnp.asarray(q, jnp.float32)))
-        got = self._tw_via_consts(xs, q)
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
-        # interpolation through them matches np.interp with clamping
-        ys = np.array([1.0, 3.0])
-        np.testing.assert_allclose(got @ ys, np.interp(q, xs, ys), rtol=1e-6)
-
-
 class TestDegenerateAxes:
     def test_near_duplicate_nodes(self):
         """Nodes closer than float spacing of queries still sum to 1."""

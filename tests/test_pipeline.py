@@ -1,8 +1,7 @@
 """End-to-end pipeline test: param file -> optimize -> MCMC -> artifacts.
 
-Uses the self-contained synthetic model family plus the public filter-curve
-directory (read-only reference data).  Skipped when the filter data is not
-available.
+Uses the self-contained synthetic model family plus a synthetic filter-curve
+directory in the reference's file formats (the ``bps_dir`` fixture).
 """
 import os
 
@@ -10,17 +9,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-BPS_DIR = os.environ.get("MCMC_SPEC_BPS", "/root/reference/bps")
-VEGA = os.environ.get("MCMC_SPEC_VEGA", "/root/reference/vegaspec.fits")
-
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(BPS_DIR), reason="filter curve directory unavailable"
-)
-
 TRUTH = dict(t1=4600.0, t2=3400.0, av=0.12, r1=0.72, rr2=0.45, plx=2.0e-3)
 
 
-def _write_param_file(tmp_path, datafile, cmag, pmag, dirname):
+def _write_param_file(tmp_path, datafile, cmag, pmag, dirname, bps_dir):
     content = f"""### synthetic end-to-end fixture
 models synthetic
 dirname {dirname}
@@ -55,7 +47,7 @@ ndust 0
 nburn 40
 nsteps 200
 real_values [{TRUTH['t1']},{TRUTH['t2']},{TRUTH['av']},{TRUTH['r1']},{TRUTH['rr2']},{TRUTH['plx']}]
-bps_dir {BPS_DIR}
+bps_dir {bps_dir}
 """
     path = tmp_path / "param_synth_e2e.txt"
     path.write_text(content)
@@ -63,7 +55,7 @@ bps_dir {BPS_DIR}
 
 
 @pytest.fixture(scope="module")
-def e2e(tmp_path_factory):
+def e2e(tmp_path_factory, bps_dir):
     """Generate a synthetic observation, run both stages, return the context."""
     tmp_path = tmp_path_factory.mktemp("e2e")
     os.chdir(tmp_path)  # pipeline writes results under cwd/dirname
@@ -81,7 +73,7 @@ def e2e(tmp_path_factory):
     np.savetxt(datafile, np.column_stack([wl_um, np.ones_like(wl_um), 0.01 * np.ones_like(wl_um)]))
 
     param0 = _write_param_file(tmp_path, datafile, [1.0, 1.0], [14.0, 13.5, 13.2, 12.2, 11.7, 11.6],
-                               dirname="run0")
+                               dirname="run0", bps_dir=bps_dir)
     cfg0 = FitConfig.from_dict(
         {**{k: v for k, v in _parse(param0).items()}}
     )
@@ -103,7 +95,8 @@ def e2e(tmp_path_factory):
     cmag = np.asarray(summ["contrasts"])
     pmag = np.asarray(summ["phot_mags"])
 
-    paramfile = _write_param_file(tmp_path, datafile, cmag, pmag, dirname="run1")
+    paramfile = _write_param_file(tmp_path, datafile, cmag, pmag, dirname="run1",
+                                  bps_dir=bps_dir)
     # the synth branch keys off the file name containing 'synth'
     cfg = FitConfig.from_file(paramfile)
     assert cfg.synth

@@ -1,4 +1,4 @@
-"""Posterior parity: the TPU sampler vs a pure-numpy reference-semantics MCMC.
+"""Posterior parity: the JAX sampler vs a pure-numpy reference-semantics MCMC.
 
 The strongest parity check available without the reference's external
 dependencies: run the *same* synthetic target through (a) this framework's
@@ -57,25 +57,25 @@ def _run_parity(st, tgt, seed):
     logp = lambda b: log_posterior_batch(b, tgt)
     state = init_ensemble(jnp.asarray(p0), logp, jax.random.PRNGKey(seed))
     state, chain, logps = run_ensemble(state, logp, n_steps=1200, thin=2)
-    tpu_samples = np.asarray(chain[300:]).reshape(-1, 6)
+    dev_samples = np.asarray(chain[300:]).reshape(-1, 6)
 
     health = check_ensemble_health(np.asarray(chain), np.asarray(logps))
     assert health["n_stuck_walkers"] == 0
 
     ref_med = np.median(ref_samples, axis=0)
-    tpu_med = np.median(tpu_samples, axis=0)
+    dev_med = np.median(dev_samples, axis=0)
     ref_sig = ref_samples.std(axis=0)
-    tpu_sig = tpu_samples.std(axis=0)
+    dev_sig = dev_samples.std(axis=0)
 
     for i, name in enumerate(["T1", "T2", "Av", "R1", "R2/R1", "plx"]):
-        sig = max(ref_sig[i], tpu_sig[i])
-        diff = abs(tpu_med[i] - ref_med[i])
+        sig = max(ref_sig[i], dev_sig[i])
+        diff = abs(dev_med[i] - ref_med[i])
         assert diff < 0.5 * sig + 1e-12, (
             f"{name}: median diff {diff:.4g} vs 0.5*sigma {0.5 * sig:.4g} "
-            f"(ref {ref_med[i]:.5g}, tpu {tpu_med[i]:.5g})"
+            f"(ref {ref_med[i]:.5g}, jax {dev_med[i]:.5g})"
         )
         # posterior widths should also agree to ~50%
-        assert 0.5 < (tpu_sig[i] / ref_sig[i]) < 2.0, name
+        assert 0.5 < (dev_sig[i] / ref_sig[i]) < 2.0, name
 
 
 @pytest.mark.parametrize("seed", [0])

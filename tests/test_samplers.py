@@ -178,7 +178,7 @@ class TestAnnealerExactMedianPin:
         fast = dataclasses.replace(tgt, median_iters=14)
         batched.optimizer_chi2_batch(p, fast)
         assert seen["median_iters"] == 31
-        # unset (0) stays unset so resolve_dials' loud failure is preserved
+        # unset (0) stays unset (the lanes read 0 as exact)
         unset = dataclasses.replace(tgt, median_iters=0)
         batched.optimizer_chi2_batch(p, unset)
         assert seen["median_iters"] == 0

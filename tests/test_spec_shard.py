@@ -145,7 +145,8 @@ class TestPadPackedTarget:
         packed, _ = build_bench_target(jnp.float32, nd=250, grid_step=8.0,
                                        pad_nd=320)
         repad = pad_packed_target_nd(base, 320)
-        assert repad.spectrum_backend == "xla" == packed.spectrum_backend
+        assert repad.n_data == packed.n_data == 320
+        assert int(repad.n_data_true) == int(packed.n_data_true) == 250
         for name in ("D", "data_flux", "data_err", "ext_k_data", "V", "Vpinv"):
             a, b = np.asarray(getattr(packed, name)), np.asarray(getattr(repad, name))
             assert np.array_equal(a, b, equal_nan=True), name

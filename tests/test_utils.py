@@ -6,7 +6,7 @@ import time
 import numpy as np
 import pytest
 
-from mcmc_spec_tpu.utils.flags import spectrum_kernel_mode, use_pallas_spectrum
+from mcmc_spec_tpu.utils.flags import LARGE_ND, spectrum_lane
 from mcmc_spec_tpu.utils.profiling import StageTimer, device_loop_time
 from mcmc_spec_tpu.utils.runlog import RunLog, read_run_log
 
@@ -48,42 +48,103 @@ class TestDeviceLoopTime:
 
 
 class TestFlags:
-    def test_modes(self, monkeypatch):
-        assert spectrum_kernel_mode() == "auto"
-        monkeypatch.setenv("MCMC_SPEC_SPECTRUM_KERNEL", "xla")
-        assert spectrum_kernel_mode() == "xla"
-        import jax.numpy as jnp
+    @pytest.mark.parametrize("backend,nd,lane", [
+        ("gpu", 1792, "xla"),
+        ("gpu", LARGE_ND, "xla"),
+        ("gpu", LARGE_ND + 1, "segmented"),
+        ("gpu", 65536, "segmented"),
+        ("cpu", 1792, "xla"),
+        ("cpu", 65536, "xla"),
+    ])
+    def test_spectrum_lane(self, backend, nd, lane):
+        assert spectrum_lane(nd, backend=backend) == lane
 
-        assert not use_pallas_spectrum(jnp.float32)  # forced xla
-        monkeypatch.setenv("MCMC_SPEC_SPECTRUM_KERNEL", "pallas")
-        assert use_pallas_spectrum(jnp.float64)  # forced on
-        monkeypatch.setenv("MCMC_SPEC_SPECTRUM_KERNEL", "bogus")
-        with pytest.raises(ValueError):
-            spectrum_kernel_mode()
-        monkeypatch.delenv("MCMC_SPEC_SPECTRUM_KERNEL")
-        # auto on CPU/float64 -> False
-        assert not use_pallas_spectrum(jnp.float64)
+    def test_spectrum_lane_reads_the_platform(self):
+        """Without an explicit backend the lane follows JAX's default (the
+        CPU here), never an environment variable."""
+        assert spectrum_lane(65536) == "xla"
 
-    def test_persistent_compile_cache(self, tmp_path, monkeypatch):
-        import os
-
+    def test_compile_cache_env_dir(self, tmp_path, monkeypatch):
+        """JAX_COMPILATION_CACHE_DIR wins, and no other directory is set."""
         import jax
 
         from mcmc_spec_tpu.utils.flags import enable_persistent_compile_cache
 
         prev = jax.config.jax_compilation_cache_dir
+        cache = str(tmp_path / "xla-cache")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cache)
         try:
-            # explicit directory via the env value
-            cache = str(tmp_path / "xla-cache")
-            monkeypatch.setenv("MCMC_SPEC_COMPILE_CACHE", cache)
+            jax.config.update("jax_compilation_cache_dir", "sentinel")
             assert enable_persistent_compile_cache() == cache
             assert os.path.isdir(cache)
-            assert jax.config.jax_compilation_cache_dir == cache
-            # opt-out
-            monkeypatch.setenv("MCMC_SPEC_COMPILE_CACHE", "0")
-            assert enable_persistent_compile_cache() is None
+            assert jax.config.jax_compilation_cache_dir == "sentinel"
         finally:
             jax.config.update("jax_compilation_cache_dir", prev)
+
+    def test_compile_cache_default_in_checkout(self, monkeypatch):
+        """Without the env var the cache sits at one fixed path in the checkout."""
+        import jax
+
+        import mcmc_spec_tpu
+        from mcmc_spec_tpu.utils.flags import compile_cache_dir, enable_persistent_compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(mcmc_spec_tpu.__file__)))
+        assert compile_cache_dir() == os.path.join(root, ".jax_cache")
+        prev = jax.config.jax_compilation_cache_dir
+        try:
+            assert enable_persistent_compile_cache() == compile_cache_dir()
+            assert jax.config.jax_compilation_cache_dir == compile_cache_dir()
+        finally:
+            jax.config.update("jax_compilation_cache_dir", prev)
+
+
+class TestMakeMesh:
+    def test_too_few_devices_raises(self):
+        """No silent fallback to other devices: asking for more than the
+        default backend has is an error."""
+        import jax
+
+        from mcmc_spec_tpu.parallel.mesh import make_mesh
+
+        n = len(jax.devices())
+        with pytest.raises(ValueError, match=f"need {n + 1} devices"):
+            make_mesh(n + 1)
+
+    def test_explicit_devices(self):
+        import jax
+
+        from mcmc_spec_tpu.parallel.mesh import make_mesh
+
+        cpus = jax.devices("cpu")
+        mesh = make_mesh(4, ("targets", "walkers"), devices=cpus)
+        assert dict(mesh.shape) == {"targets": 2, "walkers": 2}
+        assert list(mesh.devices.ravel()) == cpus[:4]
+
+
+class TestExtras:
+    def test_missing_module_exits_with_message(self):
+        from mcmc_spec_tpu.utils.extras import require
+
+        with pytest.raises(SystemExit, match=r"install the 'plots' extra.*--noplots"):
+            require("no_such_module_xyz", "plots", hint="or pass --noplots")
+        require("numpy", "plots")  # present: no error
+
+    def test_fit_path_imports_without_extras(self):
+        """The CLI fit path needs only jax, numpy and scipy: it imports with
+        matplotlib and pandas unavailable."""
+        import subprocess
+        import sys
+
+        code = ("import sys; sys.modules['matplotlib'] = None; "
+                "sys.modules['pandas'] = None; "
+                "import mcmc_spec_tpu.cli, mcmc_spec_tpu.fleet_pipeline, "
+                "mcmc_spec_tpu.bench_target, mcmc_spec_tpu.report.composite")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                             capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert out.returncode == 0, out.stderr[-2000:]
 
 
 class TestConfigParserRobustness:
